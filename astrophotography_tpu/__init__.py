@@ -1,6 +1,7 @@
-"""astrophotography_tpu — a TPU-native astronomical image-processing framework.
+"""astrophotography_tpu — an accelerator-native astronomical image-processing
+framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 DaveStrickland/AstroPhotography (reference: /root/reference): DSLR RAW
 conversion (``dksraw``) and the full FITS reduction chain (the ``ap_*``
 tools), with the compute core implemented as batched, jitted device
@@ -8,7 +9,7 @@ kernels rather than single-threaded numpy.
 
 Public surface mirrors the reference package exports
 (reference AstroPhotography/__init__.py:10-12 and core/__init__.py:6-34)
-while the implementation is TPU-first.
+while the implementation is device-first.
 """
 
 from .__version__ import __version__

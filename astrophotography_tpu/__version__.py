@@ -1,3 +1,3 @@
 """Version of the astrophotography_tpu package (semver)."""
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"

@@ -62,10 +62,6 @@ def parse(argv: Optional[List[str]]) -> argparse.Namespace:
     p.add_argument("--ref_frame", default="auto",
                    help="registration reference: frame index or 'auto' "
                         "(frame with the most detected stars)")
-    p.add_argument("--stack_engine", default="xla",
-                   choices=("xla", "pallas", "fused"),
-                   help="stack combine engine (fused = memory-lean "
-                        "Pallas warp+combine mega-kernel)")
     p.add_argument("--stack_combine", default="average",
                    choices=["average", "median", "sum"])
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -100,7 +96,6 @@ def run(ns: argparse.Namespace) -> None:
         stack_combine=ns.stack_combine,
         ref_frame=(int(ns.ref_frame) if str(ns.ref_frame).lstrip("-").isdigit()
                    else ns.ref_frame),
-        combine_impl=ns.stack_engine,
         noclean=not ns.clean,
         quality=not ns.no_quality,
         stack=not ns.no_stack,
@@ -111,8 +106,8 @@ def run(ns: argparse.Namespace) -> None:
     if ns.watch is None:
         if ns.profile:
             # structured tracing (SURVEY.md §5 "tracing/profiling": the
-            # reference only has ad-hoc perf_counter logs; on TPU the
-            # profiler captures per-op device timelines)
+            # reference only has ad-hoc perf_counter logs; the profiler
+            # captures per-op device timelines)
             import jax
 
             with jax.profiler.trace(ns.profile):

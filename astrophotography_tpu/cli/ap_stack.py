@@ -39,10 +39,6 @@ def parse(argv: Optional[List[str]]) -> argparse.Namespace:
                    help="combine method (swarp COMBINE_TYPE; default average)")
     p.add_argument("--sigma", type=float, default=5.0,
                    help="sigma clip bound (default 5)")
-    p.add_argument("--engine", default="xla",
-                   choices=("xla", "pallas", "fused"),
-                   help="combine engine; 'fused' = memory-lean Pallas "
-                        "warp+combine mega-kernel")
     p.add_argument("--ref_frame", default="auto",
                    help="registration reference: frame index or 'auto' "
                         "(frame with the most detected stars)")
@@ -68,7 +64,7 @@ def _stack_union_canvas(stack, scales, cfg):
     """Mosaic-style stacking: output grid = union of every registered
     frame (reference swarp's common output grid, resample_all.sh).
 
-    TPU-first shape handling: the data-dependent canvas geometry is
+    Static-shape handling: the data-dependent canvas geometry is
     resolved on the HOST between two static-shape device passes —
     (1) jitted detection+registration, (2) host corner math on the
     (N, 2, 3) matrices, (3) jitted warp+combine at the static padded
@@ -202,14 +198,9 @@ def run(ns: argparse.Namespace) -> None:
     cfg = PipelineConfig(
         fwhm=ns.search_fwhm, detect_nsigma=ns.search_nsigma,
         sigma_lower=ns.sigma, sigma_upper=ns.sigma,
-        combine=ns.combine, combine_impl=ns.engine, ref_frame=ref_frame)
+        combine=ns.combine, ref_frame=ref_frame)
     t0 = time.perf_counter()
     if ns.canvas == "union":
-        if ns.engine != "xla":
-            logger.warning(
-                f"--canvas union always uses the XLA warp+combine; "
-                f"--engine {ns.engine} is ignored (the union path "
-                "materializes the warped stack)")
         stacked, diag = _stack_union_canvas(stack, scales, cfg)
     else:
         stacked, diag = calibrate_register_stack(
@@ -251,7 +242,7 @@ def run(ns: argparse.Namespace) -> None:
         out_hdr[f"ISTK{i:04d}"] = os.path.basename(path)
     out_hdr.add_history(
         f"ap_stack: {len(frames)} frames, combine={ns.combine}, "
-        f"sigma={ns.sigma}, engine={ns.engine}, ref={ref_idx}")
+        f"sigma={ns.sigma}, ref={ref_idx}")
     write_image(ns.output, stacked, out_hdr)
     if ns.weight_out:
         # frames with < 4 inliers (except the reference) registered

@@ -54,7 +54,7 @@ def _add_wb(p: argparse.ArgumentParser) -> None:
 def _args(argv: Optional[List[str]]) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog="dksraw",
-        description="TPU-native DSLR RAW converter (grey/rgb/split)")
+        description="Device-native DSLR RAW converter (grey/rgb/split)")
     parser.add_argument("--version", action="version", version=__version__)
     sub = parser.add_subparsers(dest="command", required=True)
 

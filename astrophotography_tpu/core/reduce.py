@@ -146,8 +146,6 @@ class ReduceConfig:
     stack_combine: str = "average"
     #: registration reference frame: an index or 'auto' (most stars)
     ref_frame: "int | str" = "auto"
-    #: stack engine: 'xla', 'pallas', or 'fused' (memory-lean mega-kernel)
-    combine_impl: str = "xla"
     noclean: bool = True          # skip outputs that already exist
     quality: bool = True
     stack: bool = True
@@ -467,8 +465,7 @@ def reduce_all(
                     sigma_lower=config.stack_sigma,
                     sigma_upper=config.stack_sigma,
                     combine=config.stack_combine,
-                    ref_frame=config.ref_frame,
-                    combine_impl=config.combine_impl)
+                    ref_frame=config.ref_frame)
                 # swarp-style FSCALE: stack mixed exposures in the
                 # reference frame's flux units
                 scales = np.asarray([exps[0] / e if e else 1.0

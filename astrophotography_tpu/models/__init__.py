@@ -3,15 +3,15 @@
 from .pipeline import (
     PipelineConfig,
     calibrate_register_stack,
-    calibrate_register_stack_lean,
     frame_noise_stats,
     register_frames,
+    stack_registered,
 )
 
 __all__ = [
     "PipelineConfig",
     "calibrate_register_stack",
-    "calibrate_register_stack_lean",
     "frame_noise_stats",
     "register_frames",
+    "stack_registered",
 ]

@@ -1,21 +1,21 @@
 """The flagship device pipeline: calibrate -> detect -> register -> warp
--> sigma-clip stack, fused as one jitted computation over an
-HBM-resident frame batch.
+-> sigma-clip stack, fused as one jitted computation over a
+device-resident frame batch.
 
-This is the BASELINE.json north-star path: the reference runs the same
-chain as five separate processes writing FITS between stages
-(ap_calibrate -> ap_find_stars -> ap_astrometry network solve -> swarp
-resample -> combine; SURVEY.md §3.5), one frame at a time.  Here the
-(N, H, W) stack stays on device end-to-end and every stage is batched:
-calibration broadcasts masters over the frame axis, detection vmaps the
-matched filter, registration solves all frame->reference similarities in
-parallel from the star tables, warping vmaps the Lanczos3 kernel, and
-the stack combine is a per-pixel masked sigma-clip reduce.
+The reference runs the same chain as five separate processes writing
+FITS between stages (ap_calibrate -> ap_find_stars -> ap_astrometry
+network solve -> swarp resample -> combine; SURVEY.md §3.5), one frame
+at a time.  Here the (N, H, W) stack stays on device end-to-end and
+every stage is batched: calibration broadcasts masters over the frame
+axis, detection vmaps the matched filter, registration solves all
+frame->reference similarities in parallel from the star tables, warping
+vmaps the Lanczos3 kernel, and the stack combine is a per-pixel masked
+sigma-clip reduce.
 
-Multi-chip: frames shard over the mesh for calibrate/detect/warp
+Multi-device: frames shard over the mesh for calibrate/detect/warp
 (embarrassingly parallel); XLA re-shards to the spatial axis for the
-cross-frame combine (an all-to-all over ICI) when the caller jits this
-function under a Mesh with sharded inputs (see parallel/).
+cross-frame combine (an all-to-all) when the caller jits this function
+under a Mesh with sharded inputs (see parallel/).
 """
 
 from __future__ import annotations
@@ -46,36 +46,30 @@ class PipelineConfig:
     sigma_lower: float = 5.0
     sigma_upper: float = 5.0
     combine: str = "average"
-    #: 'xla' (fused two-sort path), 'pallas' (single-HBM-pass combine
-    #: kernel), or 'fused' (warp+combine in ONE Pallas kernel — no
-    #: stack-sized temporaries at all)
-    combine_impl: str = "xla"
-    #: 'separable' = gather-free two-pass Lanczos3 (TPU fast path),
-    #: 'lanczos3' = direct 6x6 gather kernel, 'bilinear' = cheap preview
+    #: 'separable' = gather-free two-pass Lanczos3 (shift budget
+    #: ``warp_span``), 'lanczos3' = direct 6x6 gather kernel (any
+    #: affine), 'bilinear' = cheap preview
     interp: str = "separable"
-    #: shift budget of the separable warp: 12 covers the rotations of
-    #: dithered same-rig stacks (~0.1 deg at 2k); raise for mosaics
+    #: shift budget of the separable warp: it resamples exactly while
+    #: |m10|*W <= warp_span - 6 (ops/warp.warp_affine_separable) -- 12
+    #: covers the rotations of dithered same-rig stacks (~0.08 deg at
+    #: 4k width); raise it for larger field rotations and mosaics
     warp_span: int = 12
-    #: fused-kernel non-snapped tap path: 'exact' handles any affine;
-    #: 'lowrank' is ~25% faster for dither+field-rotation stacks
-    #: (drift bounded by the 0.05 px snap tolerance; frames beyond
-    #: ~0.8 deg at 1k tiles are coverage-excluded, not approximated)
-    general_taps: str = "exact"
     dark_still_biased: bool = True
     #: number of horizontal bands the warp+combine streams over.  1 =
     #: whole-stack at once (fastest when it fits); larger values bound
-    #: peak HBM to ~(stack + N*H/n_bands*W) instead of several full
-    #: (N, H, W) temporaries — required for 100x16-Mpix stacks.
+    #: peak device memory to ~(stack + N*H/n_bands*W) instead of several
+    #: full (N, H, W) temporaries
     n_bands: int = 1
     #: detection across frames: 'vmap' (parallel, one density stack) or
-    #: 'chunked' (lax.map over chunks of detect_chunk frames with an
-    #: inner vmap — bounds memory without per-frame dispatch overhead;
-    #: plain per-frame scan measured pathologically slow on TPU)
+    #: 'chunked' (chunks of detect_chunk frames behind optimization
+    #: barriers, an inner vmap each -- bounds memory without per-frame
+    #: dispatch overhead)
     detect_mode: str = "vmap"
     detect_chunk: int = 8
     #: peak ranking: 'global' (exact full-image top_k) or 'tile'
-    #: (strongest peak per 64x256 tile — ~17x cheaper per 16-Mpix frame
-    #: on TPU; registration fields lose only same-tile neighbors)
+    #: (strongest peak per 64x256 tile -- far fewer candidates to rank;
+    #: registration fields lose only same-tile neighbors)
     detect_topk: str = "global"
     #: registration reference frame: an index, or 'auto' to pick the
     #: frame with the most detected stars (the reference workflow picks
@@ -83,64 +77,24 @@ class PipelineConfig:
     #: otherwise degrade the whole stack)
     ref_frame: "int | str" = 0
     #: matched filter: False = exact DAOFIND circular-footprint f32;
-    #: True = separable square-footprint bf16 (~4x cheaper on TPU,
-    #: registration-grade; ops/detect._fast_density)
+    #: True = separable square-footprint bf16 (registration-grade;
+    #: ops/detect._fast_density)
     detect_fast: bool = False
     #: with detect_fast: run the density/peak search on 2x row-binned
     #: data (halves detection cost; centroids stay full-resolution)
     detect_bin_rows: bool = False
-    #: fused warp+combine kernel tile (rows, cols); None = auto-size
-    #: the tile height to the frame count (VMEM/compile ceiling)
-    fused_tile: "tuple | None" = None
     #: detection-threshold noise center: 'mean' (3-iter clipped mean,
     #: sort-free; tracks the median to <0.06 sigma, bounded in tests) or
     #: 'median' (exact sigma_clipped_stats semantics, reference
     #: ApFindStars.py:142-154)
     noise_center: str = "mean"
-    #: lean-pipeline detection engine: 'auto' = the fused raw->candidate
-    #: Pallas kernel (ops/pallas_detect) when the geometry allows
-    #: (H % 64 == 0, W % 256 == 0, detect_fast semantics), else the
-    #: chunked XLA path; 'chunked' forces the XLA path; 'fused' errors
-    #: if the geometry does not allow the kernel
-    detect_impl: str = "auto"
-    #: fused-kernel apron: True pads the source stack with a zero apron
-    #: (simple, one extra stack copy); False streams tiles straight from
-    #: the unpadded stack (memory-critical 100x16-Mpix runs) at the cost
-    #: of a <= 1-tile zero border ring
-    fused_apron: bool = True
-    #: fused-detect centroid source: 'com' = center-of-mass on
-    #: full-resolution calibrated cutouts (exact ops/detect semantics;
-    #: ~4,800 small gathers per 100-frame stack), or 'kernel' =
-    #: sub-pixel bias-calibrated parabola peak offsets computed inside
-    #: the detect kernel on the matched-filter density (< 0.02 px on
-    #: Gaussian profiles, accuracy-bounded in tests; zero host gathers
-    #: — the DAOFIND-style convolved-image centroid)
-    centroid: str = "com"
-    #: guaranteed per-axis dither spread (max-minus-min, px) the fused
-    #: kernel's shared per-tile source windows absorb: any frame set
-    #: whose registration offsets span at most this many pixels is
-    #: fully contained regardless of where the median offset sits;
-    #: frames beyond the spread are excluded per tile via coverage
-    #: rather than resampled from out-of-window data.  Tighter budgets
-    #: shrink the window by delivery blocks (~4% kernel time at 8 vs
-    #: 64); set it from the known dither pattern of the observing run
-    dither_budget: int = 64
 
     def __post_init__(self):
         # catch typos up front: a misspelled mode would otherwise fall
         # through to a default path silently
-        if self.centroid not in ("com", "kernel"):
-            raise ValueError(f"PipelineConfig.centroid must be 'com' or "
-                             f"'kernel', got {self.centroid!r}")
-        if self.detect_impl not in ("auto", "chunked", "fused"):
-            raise ValueError(f"PipelineConfig.detect_impl must be 'auto', "
-                             f"'chunked' or 'fused', got {self.detect_impl!r}")
         if self.noise_center not in ("mean", "median"):
             raise ValueError(f"PipelineConfig.noise_center must be 'mean' "
                              f"or 'median', got {self.noise_center!r}")
-        if self.general_taps not in ("exact", "lowrank"):
-            raise ValueError(f"PipelineConfig.general_taps must be 'exact' "
-                             f"or 'lowrank', got {self.general_taps!r}")
 
 
 def _noise_row_stride(h: int) -> int:
@@ -154,11 +108,10 @@ def _noise_row_stride(h: int) -> int:
 def _sample_rows(x: jnp.ndarray, st: int) -> jnp.ndarray:
     """Every st-th row of an (..., H, W) array — x[..., ::st, :] values.
 
-    NOT written as a strided slice: on a (100, 4096, 4096) uint16 stack
-    XLA lowers ``x[:, ::st, :]`` to a gather behind a full-stack layout
-    copy (~21 ms measured on v5e — 10% of the whole north-star
-    pipeline); the reshape+unit-slice form lowers to a plain windowed
-    slice (sub-ms)."""
+    NOT written as a strided slice: on a (100, 4096, 4096) stack XLA
+    can lower ``x[:, ::st, :]`` to a gather behind a full-stack layout
+    copy; the reshape+unit-slice form lowers to a plain windowed
+    slice."""
     h = x.shape[-2]
     if h % st:
         return x[..., ::st, :]
@@ -170,10 +123,9 @@ def _sample_rows(x: jnp.ndarray, st: int) -> jnp.ndarray:
 def frame_noise_stats(frames: jnp.ndarray,
                       center: str = "mean") -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Per-frame (center, robust std) for detection thresholds, on a
-    row-subsampled grid (:func:`_noise_row_stride`).  Rows only: a
-    lane-axis (column) stride reads ~10x slower than contiguous lanes
-    on TPU, so full rows are both cheaper and a larger sample than a
-    2-D stride grid.
+    row-subsampled grid (:func:`_noise_row_stride`).  Rows only: full
+    contiguous rows read at full memory bandwidth and are a larger
+    sample than a 2-D stride grid.
 
     ``center='mean'`` (default): 3 iterations of mean/std clipping — no
     sorts in the hot path; the clipped mean tracks the median to
@@ -184,12 +136,6 @@ def frame_noise_stats(frames: jnp.ndarray,
     """
     st = _noise_row_stride(frames.shape[1])
     sub = _sample_rows(frames, st).reshape(frames.shape[0], -1)
-    return _noise_stats_from_sub(sub, center)
-
-
-def _noise_stats_from_sub(sub: jnp.ndarray, center: str):
-    """(center, std) per row of an (N, M) subsample (see
-    :func:`frame_noise_stats`)."""
     if center == "median":
         from ..ops.stats import sigma_clipped_stats
 
@@ -209,170 +155,6 @@ def _noise_stats_from_sub(sub: jnp.ndarray, center: str):
     return cen, std
 
 
-def _calibration_planes(bias, dark, flat, dark_still_biased: bool, h, w):
-    """Combined calibration planes for ``cal = raw * A - B - r * C``.
-
-    Returns ``(a_full, b_plane, c_plane, has_masters)``; ``a_full`` is
-    None when there is no flat (the multiply is elided), and b_plane /
-    c_plane are None when bias / dark is absent (an exactly-zero plane
-    would still cost per-star centroid gathers and per-pixel
-    subtractions downstream).  Shared by the fused detection path and
-    the lean stacking stage so the dark_still_biased rule lives in
-    exactly one place."""
-    has_masters = any(m is not None for m in (bias, dark, flat))
-    a_full = (1.0 / flat).astype(jnp.float32) if flat is not None else None
-    bias_t = bias if bias is not None else jnp.zeros((h, w), jnp.float32)
-    if dark is not None:
-        dark_use = dark - bias_t if (dark_still_biased
-                                     and bias is not None) else dark
-    else:
-        dark_use = jnp.zeros((h, w), jnp.float32)
-    af = a_full if a_full is not None else 1.0
-    b_plane = (bias_t * af).astype(jnp.float32) if bias is not None else None
-    c_plane = (dark_use * af).astype(jnp.float32) if dark is not None else None
-    return a_full, b_plane, c_plane, bias_t, dark_use, has_masters
-
-
-def _detect_stars_fused(frames, bias, dark, flat, exp_ratios,
-                        config: PipelineConfig):
-    """Registration-grade Stars table via the fused raw->candidate
-    Pallas kernel (ops/pallas_detect): one streaming pass over the raw
-    uint16 stack produces per-tile density-peak candidates; the host
-    side runs the tiny top-k, resolves the full-resolution peak row,
-    and computes center-of-mass centroids on CALIBRATED 5x5 cutouts —
-    the f32 calibrated stack never exists."""
-    from ..ops.detect import Stars, _kernel_radius
-    from ..ops.pallas_detect import (_BIN, _TTX, _TTY, master_densities,
-                                     pallas_detect_tiles)
-
-    n, h, w = frames.shape
-    # combined calibration planes (cal = raw * A - B - r * C)
-    a_full, b_plane, c_plane, bias_t, dark_use, has_masters = \
-        _calibration_planes(bias, dark, flat, config.dark_still_biased, h, w)
-
-    # per-frame noise stats on calibrated SUBSAMPLED rows only
-    st = _noise_row_stride(h)
-    rows = _sample_rows(frames, st).astype(jnp.float32)
-    if has_masters:
-        cal_sub = rows * _sample_rows(a_full, st) \
-            if a_full is not None else rows
-        if b_plane is not None:
-            cal_sub = cal_sub - _sample_rows(b_plane, st)
-        if c_plane is not None:
-            cal_sub = cal_sub - exp_ratios[:, None, None] \
-                * _sample_rows(c_plane, st)
-    else:
-        cal_sub = rows
-    ce, std = _noise_stats_from_sub(cal_sub.reshape(n, -1),
-                                    config.noise_center)
-
-    mf = master_densities(bias_t, dark_use, flat, fwhm=config.fwhm) \
-        if has_masters else None
-    band = next(b for b in (128, 64, 32) if (h // _BIN) % b == 0)
-    maxv, idxv, yoffv, xoffv = pallas_detect_tiles(
-        frames, config.detect_nsigma * std, mf_bc=mf, a_plane=a_full,
-        exp_ratios=exp_ratios, fwhm=config.fwhm, band=band)
-
-    tx_n = maxv.shape[2]
-    n_tiles = maxv.shape[1] * maxv.shape[2]
-    k = min(config.max_stars, n_tiles)
-    top_vals, top_t = jax.lax.top_k(maxv.reshape(n, -1), k)
-    if k < config.max_stars:
-        # small frames have fewer tiles than the star capacity; pad
-        pad = config.max_stars - k
-        top_vals = jnp.pad(top_vals, ((0, 0), (0, pad)),
-                           constant_values=-3.0e38)
-        top_t = jnp.pad(top_t, ((0, 0), (0, pad)))
-    valid = top_vals > -1.0e37
-    l = jnp.take_along_axis(idxv.reshape(n, -1), top_t, axis=1)
-    rb = (top_t // tx_n) * _TTY + l // _TTX      # binned peak row
-    py = rb * _BIN
-    px = (top_t % tx_n) * _TTX + l % _TTX
-
-    if config.centroid == "kernel":
-        # sub-pixel positions straight from the kernel's calibrated
-        # parabola peak offsets (binned rows / full-res columns) — no
-        # host gathers at all.  The center of binned row b covers
-        # full-res rows 2b..2b+1, i.e. y = 2b + 0.5
-        yo = jnp.take_along_axis(yoffv.reshape(n, -1), top_t, axis=1)
-        xo = jnp.take_along_axis(xoffv.reshape(n, -1), top_t, axis=1)
-        zero = jnp.zeros((n, config.max_stars), jnp.float32)
-        cx_k = px.astype(jnp.float32) + xo
-        cy_k = (rb.astype(jnp.float32) + yo) * _BIN + 0.5
-        return Stars(
-            x=jnp.where(valid, cx_k, zero),
-            y=jnp.where(valid, cy_k, zero),
-            flux=jnp.where(valid, top_vals, zero),
-            peak=zero, sharpness=zero, roundness=zero,
-            valid=valid,
-        )
-
-    r = _kernel_radius(config.fwhm)
-    box = 2 * r + 1
-
-    def per_frame(frame, pys, pxs, ce_f, r_f):
-        def calpix(y, x):
-            # CALIBRATED pixel value (the chunked path compares
-            # calibrated values at ops/detect.py's peak resolution;
-            # raw values could disagree across a hot bias/dark pixel
-            # or a flat step)
-            v = frame[y, x].astype(jnp.float32)
-            if a_full is not None:
-                v = v * a_full[y, x]
-            if b_plane is not None:
-                v = v - b_plane[y, x]
-            if c_plane is not None:
-                v = v - r_f * c_plane[y, x]
-            return v
-
-        def per_star(cy, cx):
-            # the binned peak row is only even-resolved; pick the
-            # brighter full-resolution row so the centroid box centers
-            cy1 = jnp.clip(cy + 1, 0, h - 1)
-            take = calpix(cy1, cx) > calpix(cy, cx)
-            cyr = jnp.where(take, cy1, cy)
-            y0 = jnp.clip(cyr - r, 0, h - box)
-            x0 = jnp.clip(cx - r, 0, w - box)
-            cut = jax.lax.dynamic_slice(frame, (y0, x0),
-                                        (box, box)).astype(jnp.float32)
-            if a_full is not None:
-                cut = cut * jax.lax.dynamic_slice(a_full, (y0, x0),
-                                                  (box, box))
-            if b_plane is not None:
-                cut = cut - jax.lax.dynamic_slice(b_plane, (y0, x0),
-                                                  (box, box))
-            if c_plane is not None:
-                cut = cut - r_f * jax.lax.dynamic_slice(c_plane, (y0, x0),
-                                                        (box, box))
-            pos = jnp.maximum(cut - ce_f, 0.0)
-            ys = jnp.arange(box, dtype=jnp.float32)
-            xs = jnp.arange(box, dtype=jnp.float32)
-            wsum = jnp.maximum(jnp.sum(pos), 1e-12)
-            cy_f = jnp.sum(pos * ys[:, None]) / wsum + y0
-            cx_f = jnp.sum(pos * xs[None, :]) / wsum + x0
-            return cx_f, cy_f
-
-        return jax.vmap(per_star)(pys, pxs)
-
-    cx_f, cy_f = jax.vmap(per_frame)(frames, py, px, ce, exp_ratios)
-    zero = jnp.zeros((n, config.max_stars), jnp.float32)
-    return Stars(
-        x=jnp.where(valid, cx_f, zero),
-        y=jnp.where(valid, cy_f, zero),
-        flux=jnp.where(valid, top_vals, zero),
-        peak=zero, sharpness=zero, roundness=zero,
-        valid=valid,
-    )
-
-
-def _fused_detect_ok(config: PipelineConfig, h: int, w: int) -> bool:
-    """The fused detect kernel implements exactly the lean bench
-    semantics (fast filter, 2x row bin, tile top-k)."""
-    return (config.detect_fast and config.detect_bin_rows
-            and config.detect_topk == "tile"
-            and h % 64 == 0 and w % 256 == 0 and (h // 2) % 32 == 0)
-
-
 def _ref_index(stars, config: PipelineConfig):
     """Registration reference frame index: a fixed index, or 'auto' =
     the frame with the most detected stars (the reference workflow picks
@@ -389,11 +171,10 @@ def _ref_index(stars, config: PipelineConfig):
     return jnp.int32(idx % n)
 
 
-
 def _solve_frame_similarities(stars, n: int, config: PipelineConfig):
     """Reference-frame choice + per-frame similarity solves + exact
     identity overwrite for the chosen reference — the post-detection
-    half shared by every pipeline variant."""
+    half of :func:`register_frames`."""
     idx_ref = _ref_index(stars, config)
     ref = jax.tree_util.tree_map(lambda a: a[idx_ref], stars)
 
@@ -429,7 +210,8 @@ def register_frames(
 
     Returns (stars, sims, matrices (N, 2, 3), ref_idx)."""
     n = cal.shape[0]
-    center, std = frame_noise_stats(cal, center=config.noise_center)
+    with jax.named_scope("noise_stats"):
+        center, std = frame_noise_stats(cal, center=config.noise_center)
 
     def detect(frame, c, s):
         # floor=c instead of frame - c: the matched filter is
@@ -442,90 +224,44 @@ def register_frames(
                           stats=False,  # registration needs x/y/flux only
                           bin_rows=config.detect_bin_rows, floor=c)
 
-    if config.detect_mode == "chunked" and n > config.detect_chunk:
-        c = config.detect_chunk
-        if n % c:
-            raise ValueError(f"frame count {n} not divisible by "
-                             f"detect_chunk {c}")
-        parts = []
-        token = jnp.float32(0.0)
-        for k in range(0, n, c):
-            chunk, _tok = jax.lax.optimization_barrier(
-                (cal[k:k + c], token))
-            part = jax.vmap(detect)(chunk, center[k:k + c], std[k:k + c])
-            token = jax.lax.optimization_barrier(part.x[0, 0])
-            parts.append(part)
-        stars = jax.tree_util.tree_map(
-            lambda *xs: jnp.concatenate(xs, axis=0), *parts)
-    else:
-        stars = jax.vmap(detect)(cal, center, std)
+    with jax.named_scope("detect"):
+        if config.detect_mode == "chunked" and n > config.detect_chunk:
+            c = config.detect_chunk
+            if n % c:
+                raise ValueError(f"frame count {n} not divisible by "
+                                 f"detect_chunk {c}")
+            parts = []
+            token = jnp.float32(0.0)
+            for k in range(0, n, c):
+                chunk, _tok = jax.lax.optimization_barrier(
+                    (cal[k:k + c], token))
+                part = jax.vmap(detect)(chunk, center[k:k + c],
+                                        std[k:k + c])
+                token = jax.lax.optimization_barrier(part.x[0, 0])
+                parts.append(part)
+            stars = jax.tree_util.tree_map(
+                lambda *xs: jnp.concatenate(xs, axis=0), *parts)
+        else:
+            stars = jax.vmap(detect)(cal, center, std)
 
-    sims, matrices, ref_idx = _solve_frame_similarities(stars, n, config)
+    with jax.named_scope("register"):
+        sims, matrices, ref_idx = _solve_frame_similarities(stars, n,
+                                                            config)
     return stars, sims, matrices, ref_idx
 
 
 @functools.partial(jax.jit, static_argnames=("config",))
-def calibrate_register_stack(
-    frames: jnp.ndarray,
-    bias: Optional[jnp.ndarray] = None,
-    dark: Optional[jnp.ndarray] = None,
-    flat: Optional[jnp.ndarray] = None,
-    exp_ratios: Optional[jnp.ndarray] = None,
-    badpix_mask: Optional[jnp.ndarray] = None,
-    flux_scales: Optional[jnp.ndarray] = None,
+def stack_registered(
+    cal: jnp.ndarray,
+    matrices: jnp.ndarray,
     config: PipelineConfig = PipelineConfig(),
-):
-    """Full fused pipeline over an (N, H, W) stack; frame 0 is the
-    registration reference.
-
-    ``flux_scales`` (N,) multiplies each calibrated frame before
-    stacking — the swarp FSCALE-from-EXPOSURE behavior (reference
-    scripts/resample_all.sh:300-314); pass ref_exptime/exptime_i to
-    stack mixed exposures in common flux units.
-
-    Returns (stacked (H, W), diagnostics dict with per-frame transforms,
-    inlier counts, rms, star counts).
-    """
-    n, h, w = frames.shape
-    cal = calibrate_batch(
-        frames, bias, dark, flat, exp_ratios,
-        dark_still_biased=config.dark_still_biased,
-        badpix_mask=badpix_mask)
-    if flux_scales is not None:
-        cal = cal * flux_scales.astype(jnp.float32)[:, None, None]
-
-    stars, sims, matrices, ref_idx = register_frames(cal, config=config)
-
-    if config.combine_impl == "fused":
-        # single mega-kernel: per-tile on-chip warp of every frame +
-        # sigma-clip combine; no (N, H, W) temporaries exist at all
-        from ..ops.pallas_warp_combine import pallas_warp_combine
-
-        if config.n_bands > 1:
-            raise ValueError("combine_impl='fused' subsumes banding; "
-                             "use n_bands=1")
-        # apron-free needs >= 3 tile blocks per axis; small frames have
-        # no memory pressure, so quietly keep the apron there
-        apron = config.fused_apron or cal.shape[1] < 96 or cal.shape[2] < 768
-        stacked = pallas_warp_combine(
-            cal, matrices, span=config.warp_span, tile=config.fused_tile,
-            sigma_lower=config.sigma_lower, sigma_upper=config.sigma_upper,
-            apron=apron, combine=config.combine,
-            dither_budget=config.dither_budget,
-            general_taps=config.general_taps)
-        diagnostics = {
-            "scale": sims.scale,
-            "theta": sims.theta,
-            "tx": sims.tx,
-            "ty": sims.ty,
-            "n_inliers": sims.n_inliers,
-            "rms": sims.rms,
-            "n_stars": jnp.sum(stars.valid, axis=1),
-            "ref_frame": ref_idx,
-            "matrices": matrices,
-        }
-        return stacked, diagnostics
-
+) -> jnp.ndarray:
+    """Warp every frame of a calibrated (N, H, W) stack onto the
+    reference grid with its (N, 2, 3) output->input matrix and
+    sigma-clip combine — the stacking half of
+    :func:`calibrate_register_stack`.  Output pixels no frame covers
+    are 0."""
+    h, w = cal.shape[1:]
     if config.interp == "separable":
         # analytic coverage: the stacking path masks coverage<0.5 anyway,
         # so skipping the warped ones-channel halves warp work at the
@@ -537,20 +273,12 @@ def calibrate_register_stack(
         warp = {"lanczos3": warp_affine_lanczos3,
                 "bilinear": warp_affine_bilinear}[config.interp]
 
-    def warp_and_combine(band_matrices, band_h):
+    def warp_and_combine(mats, band_h):
         """Warp every frame onto one output band and combine it."""
-
-        def one_band(mats):
+        with jax.named_scope("warp"):
             warped, weights = jax.vmap(
                 lambda f, m: warp(f, m, (band_h, w)))(cal, mats)
-            if config.combine_impl == "pallas" and config.combine == "average":
-                from ..ops.pallas_combine import pallas_sigma_clip_combine
-
-                out = pallas_sigma_clip_combine(
-                    warped, mask=(weights > 0.5).astype(jnp.float32),
-                    sigma_lower=config.sigma_lower,
-                    sigma_upper=config.sigma_upper)
-                return jnp.where(jnp.isnan(out), 0.0, out)
+        with jax.named_scope("combine"):
             out = sigma_clip_combine(
                 warped, mask=weights > 0.5,
                 sigma_lower=config.sigma_lower,
@@ -559,8 +287,6 @@ def calibrate_register_stack(
             # border pixels covered by no frame are 0 (swarp weight-map
             # semantics), not NaN
             return jnp.where(jnp.isnan(out), 0.0, out)
-
-        return one_band(band_matrices)
 
     if config.n_bands <= 1:
         stacked = warp_and_combine(matrices, h)
@@ -581,6 +307,42 @@ def calibrate_register_stack(
         bands = jax.lax.map(
             lambda y0: warp_and_combine(band_mats(y0), band_h), y0s)
         stacked = bands.reshape(h, w)
+    return stacked
+
+
+@functools.partial(jax.jit, static_argnames=("config",))
+def calibrate_register_stack(
+    frames: jnp.ndarray,
+    bias: Optional[jnp.ndarray] = None,
+    dark: Optional[jnp.ndarray] = None,
+    flat: Optional[jnp.ndarray] = None,
+    exp_ratios: Optional[jnp.ndarray] = None,
+    badpix_mask: Optional[jnp.ndarray] = None,
+    flux_scales: Optional[jnp.ndarray] = None,
+    config: PipelineConfig = PipelineConfig(),
+):
+    """Full fused pipeline over an (N, H, W) stack; ``config.ref_frame``
+    picks the registration reference.
+
+    ``flux_scales`` (N,) multiplies each calibrated frame before
+    stacking — the swarp FSCALE-from-EXPOSURE behavior (reference
+    scripts/resample_all.sh:300-314); pass ref_exptime/exptime_i to
+    stack mixed exposures in common flux units.
+
+    Returns (stacked (H, W), diagnostics dict with per-frame transforms,
+    inlier counts, rms, star counts).
+    """
+    with jax.named_scope("calibrate"):
+        cal = calibrate_batch(
+            frames, bias, dark, flat, exp_ratios,
+            dark_still_biased=config.dark_still_biased,
+            badpix_mask=badpix_mask)
+        if flux_scales is not None:
+            cal = cal * flux_scales.astype(jnp.float32)[:, None, None]
+
+    stars, sims, matrices, ref_idx = register_frames(cal, config=config)
+
+    stacked = stack_registered(cal, matrices, config=config)
 
     diagnostics = {
         "scale": sims.scale,
@@ -592,112 +354,5 @@ def calibrate_register_stack(
         "n_stars": jnp.sum(stars.valid, axis=1),
         "ref_frame": ref_idx,
         "matrices": matrices,
-    }
-    return stacked, diagnostics
-
-
-@functools.partial(jax.jit, static_argnames=("config",))
-def calibrate_register_stack_lean(
-    frames: jnp.ndarray,
-    bias: Optional[jnp.ndarray] = None,
-    dark: Optional[jnp.ndarray] = None,
-    flat: Optional[jnp.ndarray] = None,
-    exp_ratios: Optional[jnp.ndarray] = None,
-    flux_scales: Optional[jnp.ndarray] = None,
-    config: PipelineConfig = PipelineConfig(),
-):
-    """Memory-lean variant of :func:`calibrate_register_stack` for
-    stacks near the HBM limit (the BASELINE 100x16-Mpix north star).
-
-    The f32 calibrated stack never exists: detection calibrates each
-    frame chunk transiently, and the fused warp+combine Pallas kernel
-    calibrates raw uint16 blocks on-chip (cal = raw*A - B - r*C with
-    A=1/flat, B=bias/flat, C=dark_used/flat).  Frames may be uint16;
-    combine may be 'average', 'median', or 'sum'; ``flux_scales`` is
-    the swarp FSCALE behavior (see :func:`calibrate_register_stack`),
-    applied inside the kernel.
-    """
-    from ..ops.pallas_warp_combine import pallas_warp_combine
-
-    n, h, w = frames.shape
-    c = config.detect_chunk if config.detect_mode == "chunked" else n
-    if n % c:
-        raise ValueError(f"frame count {n} not divisible by chunk {c}")
-    if exp_ratios is None:
-        exp_ratios = jnp.ones((n,), jnp.float32)
-
-    use_fused_detect = (config.detect_impl == "fused"
-                        or (config.detect_impl == "auto"
-                            and _fused_detect_ok(config, h, w)
-                            # parity with find_stars: on frames with
-                            # fewer (64, 256) tiles than max_stars the
-                            # XLA path falls back to full peak ranking
-                            # (ops/detect.py tile guard); 'auto' must
-                            # not silently cap candidates below it
-                            and (h // 64) * (w // 256) >= config.max_stars))
-    if config.detect_impl == "fused" and not _fused_detect_ok(config, h, w):
-        raise ValueError("detect_impl='fused' needs detect_fast + "
-                         "detect_bin_rows + detect_topk='tile' and "
-                         "H % 64 == 0, W % 256 == 0")
-    if use_fused_detect:
-        # one streaming Pallas pass over the raw stack; no chunk loop,
-        # no calibrated stack (ops/pallas_detect)
-        stars = _detect_stars_fused(frames, bias, dark, flat,
-                                    exp_ratios, config)
-    else:
-        def detect(frame, ce, s):
-            # floor=ce: no materialized (frame - center) stack (see
-            # register_frames)
-            return find_stars(frame, fwhm=config.fwhm,
-                              threshold=config.detect_nsigma * s,
-                              max_stars=config.max_stars,
-                              topk_mode=config.detect_topk,
-                              mode="fast" if config.detect_fast else "exact",
-                              stats=False,  # registration: x/y/flux only
-                              bin_rows=config.detect_bin_rows, floor=ce)
-
-        parts = []
-        token = jnp.float32(0.0)
-        for k in range(0, n, c):
-            # token chain forces the scheduler to finish each chunk
-            # before starting the next, bounding live chunk buffers
-            chunk, _tok = jax.lax.optimization_barrier(
-                (frames[k:k + c], token))
-            calc = calibrate_batch(chunk, bias, dark, flat,
-                                   exp_ratios[k:k + c],
-                                   dark_still_biased=config.dark_still_biased)
-            ce, s = frame_noise_stats(calc, center=config.noise_center)
-            part = jax.vmap(detect)(calc, ce, s)
-            # raw value as the token (zero-multiplied ones fold away)
-            token = jax.lax.optimization_barrier(part.x[0, 0])
-            parts.append(part)
-        stars = jax.tree_util.tree_map(
-            lambda *xs: jnp.concatenate(xs, axis=0), *parts)
-
-    sims, matrices, ref_idx = _solve_frame_similarities(stars, n, config)
-
-    a_pl, b_pl, c_pl, _bias_t, _dark_use, _has = _calibration_planes(
-        bias, dark, flat, config.dark_still_biased, h, w)
-    ones = jnp.ones((h, w), jnp.float32)
-    zeros = jnp.zeros((h, w), jnp.float32)
-    masters = jnp.stack([a_pl if a_pl is not None else ones,
-                         b_pl if b_pl is not None else zeros,
-                         c_pl if c_pl is not None else zeros])
-
-    apron = config.fused_apron or h < 96 or w < 768
-    stacked = pallas_warp_combine(
-        frames, matrices, masters=masters, exp_ratios=exp_ratios,
-        flux_scales=flux_scales,
-        span=config.warp_span, tile=config.fused_tile,
-        sigma_lower=config.sigma_lower,
-        sigma_upper=config.sigma_upper, apron=apron,
-        combine=config.combine, dither_budget=config.dither_budget,
-        general_taps=config.general_taps)
-    diagnostics = {
-        "scale": sims.scale, "theta": sims.theta,
-        "tx": sims.tx, "ty": sims.ty,
-        "n_inliers": sims.n_inliers, "rms": sims.rms,
-        "n_stars": jnp.sum(stars.valid, axis=1),
-        "ref_frame": ref_idx,
     }
     return stacked, diagnostics

@@ -1,6 +1,6 @@
 """Large-scale 2-D sky background modelling.
 
-TPU-native equivalent of photutils.Background2D as configured by the
+Device-native equivalent of photutils.Background2D as configured by the
 reference ApMeasureBackground (core/ApMeasureBackground.py:332-417:
 coarse box grid, per-box sigma-clipped median with source-masked pixels
 excluded, exclude_percentile guard, median filter over the box grid,
@@ -44,7 +44,7 @@ def _spline_zoom_matrix(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) float64 matrix realizing scipy.ndimage.zoom's 1-D
     order-3 spline zoom with mode='reflect', grid_mode=True — exactly
     (value-asserted against scipy in tests).  The separable 2-D zoom is
-    then two small static matmuls (My @ grid @ Mx.T), the TPU-friendly
+    then two small static matmuls (My @ grid @ Mx.T), the device-friendly
     form of photutils' BkgZoomInterpolator (the reference's Background2D
     upsampler, core/ApMeasureBackground.py:404-410).
 
@@ -172,7 +172,11 @@ def background2d(
     if upsample == "spline":
         my = jnp.asarray(_spline_zoom_matrix(nboxes_y, h), jnp.float32)
         mx = jnp.asarray(_spline_zoom_matrix(nboxes_x, w), jnp.float32)
-        return my @ box_med @ mx.T
+        # full f32 products: the zoom is pinned to scipy, and a
+        # reduced-precision matmul (TF32) keeps only ~3 decimal digits
+        hi = jax.lax.Precision.HIGHEST
+        return jnp.matmul(jnp.matmul(my, box_med, precision=hi), mx.T,
+                          precision=hi)
 
     # bilinear upsample box centers -> full resolution
     yc = (jnp.arange(h, dtype=jnp.float32) - (by - 1) / 2.0) / by

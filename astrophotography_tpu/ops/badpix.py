@@ -6,7 +6,7 @@ Replaces three reference hot loops:
   taking a cutout + np.median each (reference
   core/ApFixBadPixels.py:371-418, self-timed in ms/pixel).  Here the
   (2Δ+1)² neighborhood is materialized as a stacked shift pyramid and
-  the masked median runs for all pixels at once on the VPU.
+  the masked median runs for all pixels at once on the device.
 * ApFindBadPixels._generate_sigmaclip_mask (reference
   core/ApFindBadPixels.py:171-217).
 * ApAutoBadcols._sliding_stats_1d — a Python ``for`` over every

@@ -1,6 +1,6 @@
 """L.A.Cosmic cosmic-ray detection/removal as a fixed-iteration XLA loop.
 
-TPU-native replacement for astroscrappy (Cython) as invoked through
+Device-native replacement for astroscrappy (Cython) as invoked through
 ccdproc by the reference (core/ApFixCosmicRays.py:265-295: gain-applied
 electrons, sigclip=4.5, readnoise=12 e-, fsmode='convolve' with a
 Gaussian PSF of fwhm=3.5 / size=7, satlevel = gain*65535, niter=6).
@@ -23,7 +23,7 @@ per iteration —
 The iteration count is static (jit-friendly); the cumulative CR mask
 and the cleaned image are returned.
 
-All median filters are shift-stack sorts on the VPU and the PSF
+All median filters are shift-stack sorts on the device and the PSF
 convolution is a static shifted-add stencil; there is no gather and no
 data-dependent control flow anywhere.
 """

@@ -1,6 +1,6 @@
 """Fused RAW mosaic -> RGB/grey conversion kernels.
 
-TPU-native replacement for the LibRaw ``postprocess`` call the
+Device-native replacement for the LibRaw ``postprocess`` call the
 reference makes for every conversion (reference core/RawConv.py:453-455:
 linear gamma, no auto-bright/scale, 16-bit output, user white balance).
 The whole chain — per-site black-level subtraction with the uint16
@@ -17,8 +17,8 @@ Demosaic algorithms:
   filters over the CFA signal, selected per site class.  Quality is
   AHD-class on edges (the reference inherits LibRaw's AHD via
   postprocess, core/RawConv.py:453-455) while staying a pure
-  fixed-stencil convolution — ideal for the TPU VPU, no data-dependent
-  control flow.
+  fixed-stencil convolution — elementwise device work, no
+  data-dependent control flow.
 * ``bilinear`` — mask-normalized bilinear interpolation, pattern
   agnostic; kept as the fallback for exotic CFA layouts.
 * ``ahd`` — adaptive homogeneity-directed (Hirakawa & Parks 2005), the
@@ -52,7 +52,7 @@ MAX_ADU = 65535.0
 
 
 def _conv3x3_sum(x: jnp.ndarray, kernel) -> jnp.ndarray:
-    """3x3 weighted sum via shifted adds (VPU-friendly, no gathers).
+    """3x3 weighted sum via shifted adds (elementwise, no gathers).
 
     ``kernel`` is a static Python 3x3 nested sequence so zero taps are
     elided at trace time.
@@ -341,7 +341,9 @@ def raw_to_grey_linear(
     rgb = raw_to_rgb(mosaic, color_map, black_levels, wb, white_level,
                      subtract_black, algorithm=algorithm)
     coeff = jnp.array(CCIR601, dtype=jnp.float32)
-    return jnp.clip(rgb, 0.0, MAX_ADU) @ coeff
+    # full f32 product: at 65535 ADU a TF32 dot is off by tens of ADU
+    return jnp.matmul(jnp.clip(rgb, 0.0, MAX_ADU), coeff,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 @functools.partial(jax.jit, static_argnames=("subtract_black",))

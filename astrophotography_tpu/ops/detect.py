@@ -1,6 +1,6 @@
 """DAOFIND-style star detection as fixed-capacity device ops.
 
-TPU-native equivalent of photutils.DAOStarFinder as used by the
+Device-native equivalent of photutils.DAOStarFinder as used by the
 reference (core/ApFindStars.py:299-340: DAOStarFinder(fwhm,
 threshold=nsigma*bg_stddev) on background-subtracted data) plus the
 saturation peak search (core/ApFindStars.py:866-876).
@@ -85,9 +85,9 @@ def _conv2d_same(img: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     """2-D correlation with zero padding via static shifted adds.
 
     For the small detection kernels (5x5 - 9x9) this lowers to pure
-    VPU elementwise work that XLA fuses into a handful of HBM passes —
-    measured faster than conv_general_dilated's im2col-style lowering
-    for single-channel images on TPU.
+    elementwise work that XLA fuses into a handful of device-memory
+    passes, with no im2col-style conv lowering for single-channel
+    images.
     """
     import numpy as _np
 
@@ -99,7 +99,7 @@ def _conv_separable_same(img: jnp.ndarray, col: jnp.ndarray,
     """Separable correlation (rank-1 kernel col x row), zero padded.
 
     Two 1-D tap loops instead of kh*kw 2-D taps; the column pass runs
-    first so the lane-shifted (expensive) row pass touches the already
+    first so the column-shifted (expensive) row pass touches the already
     reduced intermediate once."""
     kh, kw = col.shape[0], row.shape[0]
     h, w = img.shape
@@ -173,8 +173,7 @@ def find_stars(
     filter has zero DC response, so passing the un-subtracted frame
     with ``floor=center`` is numerically identical to passing
     ``frame - center`` — without materializing the subtracted copy
-    (saves a full f32 stack write+read per detection chunk in the
-    lean pipeline).
+    (saves a full f32 stack write+read per detection chunk).
 
     ``threshold`` is in amplitude (density) units — pass
     ``nsigma * bg_stddev`` to match the reference invocation
@@ -182,21 +181,21 @@ def find_stars(
 
     ``topk_mode``: 'global' ranks every peak exactly;  'tile' keeps
     only the strongest peak per 64x256 tile before ranking — a
-    full-image top_k costs ~17 ms/16-Mpix frame on a v5e while the
-    tile reduction is ~1 ms, and registration-grade fields (tens of
-    stars per frame) lose at most the occasional same-tile neighbor.
+    per-tile max reduction in place of a full-image top_k, and
+    registration-grade fields (tens of stars per frame) lose at most
+    the occasional same-tile neighbor.
 
     ``mode``: 'exact' = DAOFIND circular-footprint f32 matched filter;
-    'fast' = separable square-footprint bf16 filter (~4x cheaper on
-    TPU; registration-grade — see :func:`_fast_density`); the bf16
+    'fast' = separable square-footprint bf16 filter (fewer taps at
+    half the bytes; registration-grade — see :func:`_fast_density`); the bf16
     density also halves the peak-search HBM traffic.
 
     ``stats=False`` skips the per-star sharpness/roundness/peak-value
     statistics (zeros returned) — registration only needs x/y/flux.
 
     ``bin_rows`` (fast mode, stats=False only): run the density and
-    peak search on 2x row-binned data (sublane-cheap; column binning
-    would pay the TPU lane-stride penalty) — halves the detection
+    peak search on 2x row-binned data (row binning keeps the
+    contiguous column axis untouched) — halves the detection
     cost.  Peak rows map back x2 and the full-resolution
     center-of-mass centroid restores subpixel accuracy.
     """
@@ -252,8 +251,8 @@ def find_stars(
             and (hd // tth) * (w // ttw) >= max_stars):
         # strongest peak per (64, 256) tile, then a tiny cross-tile
         # top_k.  The within-tile argmax is recovered with iota-select
-        # (reductions over sublane axis 1 and lane axis 3 of the
-        # reshape — no strided slices, no gathers).
+        # (reductions over axes 1 and 3 of the reshape — no strided
+        # slices, no gathers).
         s4 = score.reshape(hd // tth, tth, w // ttw, ttw)
         m = jnp.max(s4, axis=(1, 3))
         ly = jax.lax.broadcasted_iota(jnp.int32, s4.shape, 1)
@@ -271,9 +270,8 @@ def find_stars(
     elif hd % 2 == 0:
         # two vertically adjacent strict 3x3 maxima are impossible, so a
         # pairwise row max halves the top_k input without losing any
-        # candidate.  Only the SUBLANE axis is strided: lane-axis
-        # (column) strides and trailing small axes are both
-        # catastrophically slow on TPU (measured 8-10x).
+        # candidate.  Only the row axis is strided, so the contiguous
+        # column axis keeps its full-width reads.
         r0 = score[0::2, :]
         r1 = score[1::2, :]
         bmax = jnp.maximum(r0, r1)

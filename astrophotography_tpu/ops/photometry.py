@@ -1,6 +1,6 @@
 """Vectorized circular-aperture photometry.
 
-TPU-native replacement for the reference's per-star Python loop over
+Device-native replacement for the reference's per-star Python loop over
 photutils annulus masks (core/ApFindStars.py:363-446, the hot loop at
 :383-389).  All stars are processed at once: per-star cutouts are
 gathered with dynamic slices, aperture coverage uses an anti-aliased

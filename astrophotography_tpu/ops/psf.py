@@ -1,6 +1,6 @@
 """Batched 2-D Gaussian PSF fitting by Levenberg-Marquardt.
 
-TPU-native replacement for the reference's per-star scipy LevMar fits
+Device-native replacement for the reference's per-star scipy LevMar fits
 (reference core/ApMeasureStars.py:223-430: staged Gaussian2D + Const2D
 fits with weights 1/sqrt(counts), reduced chi^2, FWHM = 2.35482*sigma,
 axial ratio and 3-sigma circularity test).  All stars fit at once:
@@ -10,7 +10,7 @@ across the batch.
 
 Also provides the isolation filter the reference runs through a scipy
 KDTree (core/ApMeasureStars.py:952-1003) as a brute-force O(N^2)
-pairwise distance computation — trivial at N <= 10^4 on the MXU/VPU.
+pairwise distance computation — trivial at N <= 10^4 on the device.
 """
 
 from __future__ import annotations
@@ -22,6 +22,10 @@ import jax
 import jax.numpy as jnp
 
 FWHM_PER_SIGMA = 2.35482
+
+#: full f32 normal equations: a reduced-precision (TF32) J^T J keeps
+#: only ~3 decimal digits, too few for the LM solve
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class PSFFits(NamedTuple):
@@ -133,8 +137,8 @@ def fit_gaussian2d(
         def one(p, l, cut, w):
             r = residuals(p, cut, w)
             J = jac_fn(p, cut, w)            # (M², 7)
-            g = J.T @ r                       # gradient of 0.5*|r|²  (sign: J^T r)
-            H = J.T @ J
+            g = jnp.matmul(J.T, r, precision=_HIGHEST)  # grad of 0.5*|r|²
+            H = jnp.matmul(J.T, J, precision=_HIGHEST)
             Hd = H + l * jnp.diag(jnp.diag(H)) + 1e-8 * jnp.eye(7)
             delta = jnp.linalg.solve(Hd, g)
             new_p = p - delta  # descend: minimize |r|^2 with J = dr/dp
@@ -156,7 +160,7 @@ def fit_gaussian2d(
     def final_stats(p, cut, w):
         r = residuals(p, cut, w)
         J = jac_fn(p, cut, w)
-        H = J.T @ J + 1e-8 * jnp.eye(7)
+        H = jnp.matmul(J.T, J, precision=_HIGHEST) + 1e-8 * jnp.eye(7)
         cov = jnp.linalg.inv(H)
         dof = box * box - 7
         chi2r = jnp.sum(r * r) / dof

@@ -2,8 +2,8 @@
 
 The reference has no local registration — frames are aligned by swarp
 using WCS solutions from the astrometry.net web service
-(reference scripts/resample_all.sh:330-342, core/ApAstrometry.py).  The
-TPU rebuild registers frames to a reference frame directly from their
+(reference scripts/resample_all.sh:330-342, core/ApAstrometry.py).  This
+rebuild registers frames to a reference frame directly from their
 star tables (SURVEY.md §2.5 "astrometry.net" row), so stacking never
 needs the network.
 
@@ -160,12 +160,10 @@ def estimate_similarity(
     ty_c = ty_i - (s_c * rx_i + c_c * ry_i)
 
     # score candidates: count ref stars that land within tol of any tgt
-    # star.  The candidate axis is kept MINOR (TPU lanes): a
-    # per-candidate vmap over (k, k) distance matrices pads every tiny
-    # row to the (8, 128) vreg — ~95% of the VPU wasted and, vmapped
-    # over a 100-frame stack, tens of ms of registration wall time;
-    # candidates-on-lanes fills every vreg (measured ~4x on the
-    # registration stage at n=100, k=10).  Chunked so the (k, k, C)
+    # star.  The candidate axis is kept MINOR (contiguous): a
+    # per-candidate vmap over (k, k) distance matrices leaves every tiny
+    # row mostly padding; candidates-minor gives each elementwise op
+    # long contiguous runs.  Chunked so the (k, k, C)
     # temporary stays bounded under the frame vmap.
     flat_c = c_c.reshape(-1)
     flat_s = s_c.reshape(-1)
@@ -206,20 +204,22 @@ def estimate_similarity(
     c_b, s_b = flat_c[best], flat_s[best]
     tx_b, ty_b = flat_tx[best], flat_ty[best]
 
-    # refinement: nearest-neighbor matching under current transform +
-    # weighted closed-form refit
+    # refinement over EVERY valid star (the candidate search above uses
+    # only the k brightest; centroid errors average down with the
+    # number of matched stars): nearest-neighbor matching under the
+    # current transform + weighted closed-form refit
     def refine(carry, _):
         c, s, tx0, ty0 = carry
-        mx = c * rx - s * ry + tx0
-        my = s * rx + c * ry + ty0
-        d2 = ((mx[:, None] - tx_[None, :]) ** 2
-              + (my[:, None] - ty_[None, :]) ** 2)
-        d2 = jnp.where(rv[:, None] & tv[None, :], d2, jnp.inf)
+        mx = c * ref_x - s * ref_y + tx0
+        my = s * ref_x + c * ref_y + ty0
+        d2 = ((mx[:, None] - tgt_x[None, :]) ** 2
+              + (my[:, None] - tgt_y[None, :]) ** 2)
+        d2 = jnp.where(ref_valid[:, None] & tgt_valid[None, :], d2, jnp.inf)
         nn = jnp.argmin(d2, axis=1)
         nn_d2 = jnp.min(d2, axis=1)
         wgt = (nn_d2 < inlier_tol ** 2).astype(jnp.float32)
-        src = jnp.stack([rx, ry], axis=1)
-        dst = jnp.stack([jnp.take(tx_, nn), jnp.take(ty_, nn)], axis=1)
+        src = jnp.stack([ref_x, ref_y], axis=1)
+        dst = jnp.stack([jnp.take(tgt_x, nn), jnp.take(tgt_y, nn)], axis=1)
         scale, theta, tx1, ty1 = solve_similarity(src, dst, wgt)
         return (scale * jnp.cos(theta), scale * jnp.sin(theta), tx1, ty1), \
             (wgt, nn_d2, nn)
@@ -233,7 +233,8 @@ def estimate_similarity(
     # transform can drag many ref stars within tolerance of ONE target
     # (e.g. a single-star frame), which would otherwise masquerade as a
     # well-supported solution
-    n_in = jnp.sum(jnp.zeros((k,), jnp.float32).at[last_nn].max(last_w))
+    n_in = jnp.sum(jnp.zeros(tgt_x.shape, jnp.float32)
+                   .at[last_nn].max(last_w))
     rms = jnp.sqrt(jnp.sum(jnp.where(last_w > 0, last_d2, 0.0))
                    / jnp.maximum(n_in, 1.0))
     scale_f = jnp.sqrt(c_f * c_f + s_f * s_f)

@@ -1,6 +1,6 @@
 """Sigma-clipped stack combination over a frame axis.
 
-TPU-native equivalent of ccdproc.combine as invoked by the master
+Device-native equivalent of ccdproc.combine as invoked by the master
 calibration builder (reference scripts/ap_combine_darks.py:388-420:
 method='average', sigma_clip low/high = 5, center = masked median,
 deviation = mad_std, RAM-chunked via mem_limit).  Here the stack lives

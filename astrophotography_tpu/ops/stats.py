@@ -1,6 +1,6 @@
 """Masked/sigma-clipped statistics as jit-friendly fixed-iteration ops.
 
-TPU-native replacements for astropy.stats.sigma_clipped_stats /
+Device-native replacements for astropy.stats.sigma_clipped_stats /
 mad_std, which the reference calls throughout (e.g. reference
 core/ApFindStars.py:142-154, core/ApFindBadPixels.py:194-209,
 core/ApAutoBadcols.py:143-167).  Semantics match astropy defaults:
@@ -48,9 +48,9 @@ def masked_median(x: jnp.ndarray, mask: jnp.ndarray, axis: Optional[int] = None)
     hi = jnp.maximum(n // 2, 0)
     k = srt.shape[-1]
     if k <= 64:
-        # per-element take_along_axis lowers to a gather (very slow on
-        # TPU); for short reduction axes an iota-match select-sum is
-        # pure VPU work
+        # per-element take_along_axis lowers to a gather; for short
+        # reduction axes an iota-match select-sum is a plain
+        # elementwise reduction that fuses with the sort's consumer
         iota = jnp.arange(k)
         lo_val = jnp.sum(jnp.where(iota == lo[..., None], srt, 0), axis=-1)
         hi_val = jnp.sum(jnp.where(iota == hi[..., None], srt, 0), axis=-1)

@@ -1,10 +1,9 @@
-"""Shared static-stencil convolution for TPU device kernels.
+"""Shared static-stencil convolution for device kernels.
 
-Small fixed kernels (3x3 - 9x9) lower best on TPU as statically
-shifted multiply-adds over a padded image — pure VPU work XLA fuses
-into a handful of HBM passes, with no gathers and no
-conv_general_dilated im2col lowering (measured slower for
-single-channel images).  Every op that needs a small 2-D stencil
+Small fixed kernels (3x3 - 9x9) are written as statically shifted
+multiply-adds over a padded image — elementwise work XLA fuses into a
+handful of device-memory passes, with no gathers and no
+conv_general_dilated lowering for single-channel images.  Every op that needs a small 2-D stencil
 (detection matched filter, L.A.Cosmic PSF convolve, MHC demosaic)
 shares this helper; they differ only in boundary handling.
 """

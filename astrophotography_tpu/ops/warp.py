@@ -1,6 +1,6 @@
 """Inverse-mapped image warping with Lanczos3 interpolation.
 
-TPU-native replacement for swarp's resampling stage (reference
+Device-native replacement for swarp's resampling stage (reference
 scripts/resample_all.sh:330-342: LANCZOS3 resampling onto a common
 grid before co-addition).  Each output pixel applies the inverse
 transform (output/reference grid -> input frame coords) and evaluates a
@@ -138,18 +138,16 @@ def warp_affine_separable(
     analytic_coverage: bool = False,
     translation_budget: "int | None" = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Gather-free two-pass Lanczos3 affine warp (the TPU fast path).
+    """Gather-free two-pass Lanczos3 affine warp (the stacking path).
 
-    Per-pixel gathers are ~300x slower than static shifted slices on
-    TPU (XLA lowers them to scalar loads; measured ~11 ms/MPix/gather
-    vs ~0.03 ms/MPix/shift on v5e), so this implements the classic
+    Instead of per-pixel gathers this implements the classic
     two-pass separable decomposition (Heckbert): a horizontal resample
     along source rows followed by a vertical resample.  Each pass
     processes ``band`` rows at a time: one ``dynamic_slice`` positions
     a (band x (width+span)) window at the band's integer base offset,
     then ``span`` statically-shifted multiply-adds accumulate the 6
     Lanczos taps, routed to the correct shift by integer-equality
-    masks.  Everything is elementwise VPU work at HBM bandwidth.
+    masks.  Everything is elementwise work streamed at memory bandwidth.
 
     Correctness domain: |m11| bounded away from 0 and the in-band
     source-offset variation must fit in span-6:
@@ -365,11 +363,9 @@ def coverage_weight_map(
     registration carry the REJECTED_TRANSLATION sentinel in their
     matrix and fall out of coverage naturally.
 
-    Exactness caveat: this map mirrors the analytic-coverage XLA
-    combine path under default budgets.  The fused Pallas combine can
-    additionally exclude a (frame, tile) pair when the dither spread
-    exceeds its window budget (``dither_budget``, default 64 px), and
-    interp='lanczos3'/'bilinear' XLA paths mask output pixels whose
+    Exactness caveat: this map mirrors the analytic-coverage separable
+    combine path.  The interp='lanczos3'/'bilinear' paths mask output
+    pixels whose
     fractional tap coverage is <= 0.5 near frame edges; in those
     regimes the map can claim weight up to one tap footprint (~5 px)
     past what that engine actually accumulated.  Callers stacking with

@@ -5,7 +5,7 @@ ops (bad-pixel neighborhood medians, L.A.Cosmic Laplacians/medians,
 demosaic convs, the separable warp's vertical pass) need each shard to
 see a few rows of its neighbors.  This is the image-domain analogue of
 ring/context parallelism (SURVEY.md §2.6 spatial row): neighbors
-exchange boundary rows over ICI with ``jax.lax.ppermute`` inside a
+exchange boundary rows with ``jax.lax.ppermute`` inside a
 ``shard_map``, then the stencil runs locally, then the halos are
 dropped.
 """
@@ -18,10 +18,7 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def halo_exchange_rows(block: jnp.ndarray, halo: int,

@@ -8,7 +8,7 @@ two axes used throughout this framework:
 * ``frame`` — the stack axis; calibration/detection/warping are
   embarrassingly parallel over it (SURVEY.md §2.6 frame parallelism);
 * ``space`` — image rows; used for the cross-frame combine and for
-  frames too large for one chip's HBM (spatial parallelism with halo
+  frames too large for one device's memory (spatial parallelism with halo
   exchange for stencils).
 """
 
@@ -59,3 +59,28 @@ def shard_spatial(mesh: Mesh) -> NamedSharding:
 
 def replicate(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
+
+
+def sharded_calibrate_register_stack(mesh: Mesh, config):
+    """``calibrate_register_stack`` jitted over every device of ``mesh``.
+
+    Frames shard over all mesh axes for calibrate/detect/warp (each
+    device holds N/devices whole frames); the stacked output is
+    constrained to row shards over all mesh axes, so XLA reshards the
+    warped stack from frames to rows for the cross-frame combine.
+    Masters and exposure ratios are replicated.  Returns a function of
+    (frames, bias, dark, flat, exp_ratios) -> (stacked, diagnostics).
+    """
+    from ..models.pipeline import calibrate_register_stack
+
+    axes = tuple(mesh.axis_names)
+    rows = NamedSharding(mesh, P(axes, None))
+
+    def step(frames, bias, dark, flat, exp_ratios):
+        stacked, diag = calibrate_register_stack(
+            frames, bias, dark, flat, exp_ratios, config=config)
+        return jax.lax.with_sharding_constraint(stacked, rows), diag
+
+    rep = replicate(mesh)
+    return jax.jit(step, in_shardings=(
+        NamedSharding(mesh, P(axes, None, None)), rep, rep, rep, rep))

@@ -1,26 +1,29 @@
 """Persistent XLA compilation cache setup.
 
-The fused warp+combine mega-kernel compiles in ~8-10 minutes on a
-single-core host; a repo-local persistent cache turns every later
-invocation into a ~1 minute run.  IMPORTANT: the JAX build in this
-environment does NOT read the ``JAX_COMPILATION_CACHE_DIR`` /
-``JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS`` environment variables
-(``jax._src.config.compilation_cache_dir`` stays ``None``); the cache
-only activates through ``jax.config.update``, which this helper does.
-Call it after importing jax and before the first jit compile.
+A large stack compiles for tens of seconds; the persistent cache lets a
+later process reuse the compiled programs.  The cache directory is
+``JAX_COMPILATION_CACHE_DIR`` where that variable is set (JAX also reads
+it at import), and otherwise the fixed in-repo ``.jax_cache/``: the path
+is part of the cache key, so a directory that moves never hits.
 """
 
 from __future__ import annotations
 
 import os
 
+#: the fixed fallback directory, at the repository root
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
-def enable_compile_cache(cache_dir: str,
-                         min_compile_secs: float = 5.0) -> None:
-    """Activate the persistent compile cache at ``cache_dir``."""
+
+def enable_compile_cache() -> str:
+    """Activate the persistent compile cache and return its directory.
+
+    Call it after importing jax and before the first jit compile."""
     import jax
 
+    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR
     os.makedirs(cache_dir, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                      float(min_compile_secs))
+    return cache_dir

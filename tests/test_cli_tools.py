@@ -244,7 +244,7 @@ def test_ap_stack_cli(tmp_path):
         paths.append(p)
     out = str(tmp_path / "stack.fits")
     wout = str(tmp_path / "stack.weight.fits")
-    rc = ap_stack(paths + ["-o", out, "--engine", "fused", "-l", "ERROR",
+    rc = ap_stack(paths + ["-o", out, "-l", "ERROR",
                            "--weight_out", wout])
     assert rc == 0
     s, hdr = read_image(out)

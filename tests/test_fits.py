@@ -175,3 +175,33 @@ def test_read_image_device_semantics(tmp_path):
     np.testing.assert_allclose(np.asarray(dev), host, rtol=0, atol=0)
     assert "PEDESTAL" not in hd
     assert any("PEDESTAL" in h for h in hd.history)
+
+
+def test_concurrent_writes_use_distinct_temp_files(tmp_path, monkeypatch):
+    """Writer threads publishing the same path never share a temp file
+    (each thread's atomic rename must see its own complete file)."""
+    import os
+    import threading
+
+    from astrophotography_tpu.io import fits as fits_mod
+
+    path = str(tmp_path / "same.fits")
+    tmps, barrier = [], threading.Barrier(4)
+    real_replace = os.replace
+
+    def replace(src, dst):
+        tmps.append(src)
+        barrier.wait(timeout=10)   # all four temp files exist at once
+        real_replace(src, dst)
+
+    monkeypatch.setattr(fits_mod.os, "replace", replace)
+    threads = [threading.Thread(target=write_image,
+                                args=(path, np.full((4, 4), i, np.float32)))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(set(tmps)) == 4
+    data, _ = read_image(path)
+    assert data.shape == (4, 4) and len(np.unique(data)) == 1

@@ -1,6 +1,6 @@
 """End-to-end integration soak: ap_reduce over a multi-filter dataset
-with masters, cosmic rays, sky background, quality reports, the fused
-stack engine, and idempotent re-runs — the full calibrate_all.sh /
+with masters, cosmic rays, sky background, quality reports, the
+register+stack pipeline, and idempotent re-runs — the full calibrate_all.sh /
 navigate_all.sh / resample_all.sh chain in one driver invocation."""
 
 import glob
@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-# Pallas-interpreter / virtual-mesh / soak heavyweights: full-suite tier
+# multi-stage soak runs: full-suite tier
 pytestmark = pytest.mark.slow
 
 from astrophotography_tpu import synth
@@ -68,7 +68,7 @@ def test_ap_reduce_multi_filter_soak(tmp_path):
                         img.astype(np.float32), h)
 
     rc = ap_reduce([data, cal, out, "--fixcosmic", "--skybg",
-                    "--stack_engine", "fused", "-l", "ERROR"])
+                    "-l", "ERROR"])
     assert rc == 0
     stacks = sorted(glob.glob(os.path.join(out, "stack-*.fits")))
     cals = sorted(glob.glob(os.path.join(out, "cal-*.fits")))
@@ -101,7 +101,7 @@ def test_ap_reduce_multi_filter_soak(tmp_path):
 
     # idempotency: a second run skips all existing outputs and succeeds
     rc2 = ap_reduce([data, cal, out, "--fixcosmic", "--skybg",
-                     "--stack_engine", "fused", "-l", "ERROR"])
+                     "-l", "ERROR"])
     assert rc2 == 0
 
 

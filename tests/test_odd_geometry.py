@@ -1,14 +1,11 @@
-"""Non-square / non-lane-multiple geometry pins.
+"""Non-square / non-power-of-two geometry pins.
 
 Every register/stack test historically ran 192x192 and the bench
-4096^2 — all multiples of the TPU lane (128) and sublane (8) tiles —
-while the reference's real frames are 4008x2672
-(reference doc/iTelescope_processing.md:176-183).  This suite pins the
-pipeline, the fused Pallas kernel (lane/sublane padding paths,
-ops/pallas_warp_combine.py), and the ap_stack CLI on shapes chosen to
-break any hidden divisible-by-128 (or even divisible-by-8)
-assumption, plus a device-shape smoke at the reference's true
-geometry.
+4096^2 — all multiples of 128 — while the reference's real frames are
+4008x2672 (reference doc/iTelescope_processing.md:176-183).  This suite
+pins the pipeline and the ap_stack CLI on shapes chosen to break any
+hidden divisible-by-128 (or even divisible-by-8) assumption, plus a
+device-shape smoke at the reference's true geometry.
 """
 
 import os
@@ -21,15 +18,13 @@ import jax.numpy as jnp
 from astrophotography_tpu import synth
 from astrophotography_tpu.models import (PipelineConfig,
                                          calibrate_register_stack)
-from astrophotography_tpu.models.pipeline import (
-    calibrate_register_stack_lean)
 from astrophotography_tpu.io.fits import Header, read_image, write_image
 
-# interpret-mode Pallas on odd tiles: full-suite tier
+# whole-pipeline runs at odd and full sensor geometry: full-suite tier
 pytestmark = pytest.mark.slow
 
 # neither axis divisible by 128; (501, 333) odd in BOTH axes (not even
-# sublane-aligned); (250, 236) the judge's round-4 probe shape
+# 8-aligned); (250, 236) the judge's round-4 probe shape
 ODD_SHAPES = [(250, 236), (501, 333)]
 
 
@@ -80,50 +75,6 @@ def test_register_stack_odd_shape_xla(shape):
     inl = np.asarray(diag["n_inliers"])
     ref = int(diag["ref_frame"])
     assert all(inl[i] >= 4 for i in range(len(inl)) if i != ref), inl
-    assert _stars_recovered(stacked, xs, ys) >= len(xs) - 1
-
-
-@pytest.mark.parametrize("shape", ODD_SHAPES)
-def test_fused_kernel_odd_shape_matches_xla(shape):
-    """The fused Pallas kernel's lane/sublane padding paths
-    (pallas_warp_combine rounds the image up to the tile grid) must
-    produce the XLA path's values on jointly-covered pixels at shapes
-    aligned to NOTHING."""
-    frames, _ = _odd_stack(shape)
-    xla, dx_ = calibrate_register_stack(
-        jnp.asarray(frames), config=PipelineConfig(max_stars=24,
-                                                   match_k=8))
-    fused, df = calibrate_register_stack(
-        jnp.asarray(frames), config=PipelineConfig(max_stars=24,
-                                                   match_k=8,
-                                                   combine_impl="fused"))
-    a, b = np.asarray(fused), np.asarray(xla)
-    assert a.shape == shape
-    np.testing.assert_array_equal(np.asarray(df["n_inliers"]),
-                                  np.asarray(dx_["n_inliers"]))
-    both = (a != 0) & (b != 0)
-    assert both.mean() > 0.8
-    err = np.abs(a[both] - b[both])
-    # separable-XLA vs fused interpolation orders differ at float32;
-    # 0.05 ADU on a 180-ADU sky is 0.03%
-    assert np.median(err) < 0.05
-    assert np.percentile(err, 99) < 0.5
-
-
-@pytest.mark.parametrize("shape", [(250, 236)])
-def test_lean_pipeline_odd_shape(shape):
-    """The memory-lean path (raw u16 + in-kernel masters calibration —
-    the bench path) at an unaligned shape."""
-    frames, (xs, ys) = _odd_stack(shape)
-    bias = np.full(shape, 250.0, np.float32)
-    raw = np.clip(frames + bias, 0, 65535).astype(np.uint16)
-    cfg = PipelineConfig(max_stars=24, match_k=8, detect_mode="chunked",
-                         detect_chunk=2)
-    stacked, diag = calibrate_register_stack_lean(
-        jnp.asarray(raw), bias=jnp.asarray(bias), config=cfg)
-    stacked = np.asarray(stacked)
-    assert stacked.shape == shape
-    assert np.isfinite(stacked).all()
     assert _stars_recovered(stacked, xs, ys) >= len(xs) - 1
 
 

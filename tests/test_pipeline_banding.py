@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-# Pallas-interpreter / virtual-mesh / soak heavyweights: full-suite tier
+# whole-pipeline runs at two band counts: full-suite tier
 pytestmark = pytest.mark.slow
 import jax.numpy as jnp
 
@@ -31,22 +31,3 @@ def test_banded_matches_unbanded():
     np.testing.assert_allclose(np.asarray(d1["tx"]), np.asarray(d2["tx"]),
                                atol=1e-5)
 
-
-def test_banded_pallas_combine_matches():
-    """The banded path with the Pallas combine (Mosaic kernel inside
-    lax.map) compiles and matches the unbanded XLA combine — the exact
-    configuration the round-1 bench silently fell back from at
-    48x4096^2 (VERDICT round 1, weak item 2)."""
-    frames, _truths, _ = _make_dithered_stack(n_frames=4, shape=(192, 192),
-                                              seed=5)
-    base = dict(max_stars=32, match_k=10, detect_nsigma=7.0)
-    s1, _ = calibrate_register_stack(
-        jnp.asarray(frames), config=PipelineConfig(**base, n_bands=1))
-    s3, _ = calibrate_register_stack(
-        jnp.asarray(frames),
-        config=PipelineConfig(**base, n_bands=4, combine_impl="pallas"))
-    a1, a3 = np.asarray(s1), np.asarray(s3)
-    diff = np.abs(a1 - a3)
-    assert np.median(diff) < 1e-3
-    assert (diff > 1.0).mean() < 0.005
-    assert diff.max() < 20.0

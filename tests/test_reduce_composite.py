@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-# Pallas-interpreter / virtual-mesh / soak heavyweights: full-suite tier
+# multi-stage CLI soak runs: full-suite tier
 pytestmark = pytest.mark.slow
 
 from astrophotography_tpu import synth
